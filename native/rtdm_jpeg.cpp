@@ -1,6 +1,6 @@
 // Native MJPEG -> RGB decoder.
 //
-// TPU-native equivalent of the reference's C++ libjpeg decoder
+// Host-side equivalent of the reference's C++ libjpeg decoder
 // (decoder/mjpeg-decoder-sw.cpp): MJPEG frames from UVC cameras often omit
 // the Huffman tables (relying on the ISO/IEC 10918-1 Annex K.3.3 defaults),
 // so the decoder installs the standard tables when the header carries none

@@ -9,11 +9,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from rt_depth_map_tpu.config import MatcherConfig
-from rt_depth_map_tpu.golden import golden_stereo_bm
-from rt_depth_map_tpu.ops.bm import stereo_bm
-from rt_depth_map_tpu.ops.speckle import filter_speckles
-from rt_depth_map_tpu.golden.postproc import golden_filter_speckles
+from rt_depth_map.config import MatcherConfig
+from rt_depth_map.golden import golden_stereo_bm
+from rt_depth_map.ops.bm import stereo_bm
+from rt_depth_map.ops.speckle import filter_speckles
+from rt_depth_map.golden.postproc import golden_filter_speckles
 
 
 def stereo_pair(seed, H, W, shift):

@@ -9,7 +9,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from rt_depth_map_tpu.calib import (
+from rt_depth_map.calib import (
     compute_rectification,
     init_undistort_rectify_map,
     load_stereo_calibration,
@@ -18,7 +18,7 @@ from rt_depth_map_tpu.calib import (
     undistort_points,
     write_filestorage,
 )
-from rt_depth_map_tpu.calib.rectify import (
+from rt_depth_map.calib.rectify import (
     matrix_to_rodrigues,
     rodrigues_to_matrix,
 )

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rt_depth_map_tpu.ops.cc import connected_components_bbox, component_sizes
-from rt_depth_map_tpu.ops.cc import connected_components_scan
+from rt_depth_map.ops.cc import connected_components_bbox, component_sizes
+from rt_depth_map.ops.cc import connected_components_scan
 
 
 def brute_bboxes(active, connectivity=8):

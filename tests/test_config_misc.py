@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from rt_depth_map_tpu.config import EngineConfig, MatcherConfig
-from rt_depth_map_tpu.metrics import (
+from rt_depth_map.config import EngineConfig, MatcherConfig
+from rt_depth_map.metrics import (
     bad_pixel_fraction,
     disparity_report,
     validity_difference,
@@ -36,8 +36,8 @@ def test_metrics_bad_pixel():
 
 
 def test_engine_stream_health_fault():
-    from rt_depth_map_tpu.pipeline import Engine
-    from rt_depth_map_tpu.sources.base import StereoFrame
+    from rt_depth_map.pipeline import Engine
+    from rt_depth_map.sources.base import StereoFrame
 
     class DeadSource:
         width, height, rectified = 64, 48, True
@@ -59,7 +59,7 @@ def test_engine_stream_health_fault():
 
 
 def test_distributed_init_noop_without_env(monkeypatch):
-    from rt_depth_map_tpu.parallel.launch import distributed_init
+    from rt_depth_map.parallel.launch import distributed_init
 
     monkeypatch.delenv("RTDM_COORDINATOR", raising=False)
     assert distributed_init() is False
@@ -70,8 +70,8 @@ def test_intrinsics_resolution_override_semantics():
     the CLI-configured size stays the scaling denominator
     (main.cpp:87-90,116 + cmdline-parser.h:80-89): a 320x240 calibration
     under the default 1280-wide config must yield D=192*320/1280=48."""
-    from rt_depth_map_tpu.calib import compute_rectification
-    from rt_depth_map_tpu.sources import make_source
+    from rt_depth_map.calib import compute_rectification
+    from rt_depth_map.sources import make_source
 
     rect = compute_rectification(
         "/root/reference/backup/320x240/intrinsics.yml",
@@ -90,7 +90,7 @@ def test_intrinsics_resolution_override_semantics():
 def test_cli_applies_intrinsics_override(monkeypatch):
     """config_from_args + the CLI override path set capture_* (not width),
     so Engine sees the calibrated size and scaling stays reference-exact."""
-    from rt_depth_map_tpu import cli
+    from rt_depth_map import cli
 
     args = cli.build_parser().parse_args(
         ["-i", "/root/reference/backup/320x240/intrinsics.yml",
@@ -98,7 +98,7 @@ def test_cli_applies_intrinsics_override(monkeypatch):
     )
     cfg = cli.config_from_args(args)
     assert (cfg.width, cfg.height) == (1280, 720)
-    from rt_depth_map_tpu.calib import compute_rectification
+    from rt_depth_map.calib import compute_rectification
 
     rect = compute_rectification(
         args.intrinsics_file_name, args.extrinsics_file_name,
@@ -109,16 +109,62 @@ def test_cli_applies_intrinsics_override(monkeypatch):
     roundtrip = EngineConfig.from_dict(cfg.to_dict())
     assert roundtrip.capture_width == 320 and roundtrip.capture_height == 240
 import os
-def test_apply_tuned_env(tmp_path, monkeypatch):
-    from rt_depth_map_tpu.tuned import apply_tuned_env
-    f = tmp_path / "TUNED.env"
-    f.write_text("# comment\nRTDM_BM_R=16\nRTDM_LR_R=None\nEVIL=1\nRTDM_COST_R=12\n")
-    monkeypatch.delenv("RTDM_BM_R", raising=False)
-    monkeypatch.setenv("RTDM_COST_R", "20")  # explicit env wins
-    monkeypatch.delenv("EVIL", raising=False)
-    applied = apply_tuned_env(str(f))
-    assert applied == {"RTDM_BM_R": "16"}
-    assert os.environ["RTDM_BM_R"] == "16"
-    assert os.environ["RTDM_COST_R"] == "20"
-    assert "EVIL" not in os.environ
-    monkeypatch.delenv("RTDM_BM_R", raising=False)
+def test_compile_cache_dir_env_wins(monkeypatch):
+    from rt_depth_map.utils.compile_cache import compile_cache_dir
+
+    assert compile_cache_dir({"JAX_COMPILATION_CACHE_DIR": "/x"}) is None
+
+
+def test_compile_cache_dir_defaults_to_checkout():
+    from rt_depth_map.utils import compile_cache
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert compile_cache.compile_cache_dir({}) == os.path.join(
+        repo, ".jax_cache")
+
+
+@pytest.mark.parametrize("env_dir", [None, "elsewhere"])
+def test_enable_compile_cache(monkeypatch, tmp_path, env_dir):
+    """With JAX_COMPILATION_CACHE_DIR set, nothing is configured in code;
+    without it, the checkout directory is."""
+    import jax
+
+    from rt_depth_map.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        jax.config.update("jax_compilation_cache_dir", None)
+        if env_dir is None:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            got = compile_cache.enable_compile_cache()
+            assert got == compile_cache.CHECKOUT_CACHE_DIR
+            assert jax.config.jax_compilation_cache_dir == got
+        else:
+            want = str(tmp_path / env_dir)
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+            assert compile_cache.enable_compile_cache() == want
+            assert jax.config.jax_compilation_cache_dir is None
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_golden_sgbm_rejects_unknown_mode():
+    import numpy as np
+
+    from rt_depth_map.golden.sgbm import golden_stereo_sgbm
+
+    z = np.zeros((8, 40), np.uint8)
+    with pytest.raises(ValueError, match="unknown SGBM mode"):
+        golden_stereo_sgbm(z, z, 16, mode="hh8")
+
+
+def test_filestorage_without_yaml_raises_import_error(monkeypatch, tmp_path):
+    import sys
+
+    from rt_depth_map.calib import fs_yaml
+
+    f = tmp_path / "x.yml"
+    f.write_text("%YAML:1.0\na: 1\n")
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    with pytest.raises(ImportError, match="PyYAML"):
+        fs_yaml.read_filestorage(str(f))

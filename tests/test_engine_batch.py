@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from rt_depth_map_tpu.calib import RectificationResult
-from rt_depth_map_tpu.config import EngineConfig, MatcherConfig
-from rt_depth_map_tpu.pipeline import Engine
-from rt_depth_map_tpu.sources import SyntheticStereoSource
+from rt_depth_map.calib import RectificationResult
+from rt_depth_map.config import EngineConfig, MatcherConfig
+from rt_depth_map.pipeline import Engine
+from rt_depth_map.sources import SyntheticStereoSource
 
 
 @pytest.mark.parametrize("kind", ["bm", "sgm"])

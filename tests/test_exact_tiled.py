@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rt_depth_map_tpu.config import MatcherConfig
-from rt_depth_map_tpu.ops.sgbm import stereo_sgbm
-from rt_depth_map_tpu.parallel import make_mesh
-from rt_depth_map_tpu.parallel.exact_sgbm import exact_tiled_stereo_sgbm
+from rt_depth_map.config import MatcherConfig
+from rt_depth_map.ops.sgbm import stereo_sgbm
+from rt_depth_map.parallel import make_mesh
+from rt_depth_map.parallel.exact_sgbm import exact_tiled_stereo_sgbm
 
 
 def _pair(rng, H, W):
@@ -86,15 +86,14 @@ def test_exact_tiled_default_row_block(rng):
 
 
 def test_exact_tiled_pallas_lr_in_shard_map(rng):
-    """backend="pallas" at a Pallas-compatible shape: the in-VMEM LR-check
-    kernel (ops/pallas/lr_resolve.py) runs INSIDE the shard_map tile
-    program (interpret mode on the CPU mesh) and must keep bit parity with
-    the single-device pallas matcher."""
+    """The flagship-shaped tile (D=128, W1=128) with the LR check and
+    speckle filter running INSIDE the shard_map tile program must keep
+    bit parity with the single-device matcher."""
     H, W, D = 16, 256, 128
     left, right = _pair(rng, H, W)
     cfg = MatcherConfig(
         kind="sgm", num_disparities=D, block_size=5, num_paths=8,
-        pre_filter_cap=63, backend="pallas", p1=600, p2=2400,
+        pre_filter_cap=63, p1=600, p2=2400,
         uniqueness_ratio=10, disp12_max_diff=1,
         speckle_window_size=50, speckle_range=32,
     )

@@ -9,7 +9,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from rt_depth_map_tpu.golden import (
+from rt_depth_map.golden import (
     golden_filter_speckles,
     golden_stereo_bm,
     golden_validate_disparity,
@@ -115,7 +115,7 @@ def test_validate_disparity_oracle():
     # checks the standalone golden keeps already-invalid pixels invalid and
     # only ever invalidates (never revalidates).
     left, right = stereo_pair(8, 48, 128, 8)
-    from rt_depth_map_tpu.golden.bm import golden_stereo_bm as g
+    from rt_depth_map.golden.bm import golden_stereo_bm as g
 
     d_no, dbg = g(left, right, 32, 9, disp12_max_diff=-1,
                   texture_threshold=0, uniqueness_ratio=0,

@@ -14,7 +14,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from rt_depth_map_tpu.golden.sgbm import golden_stereo_sgbm
+from rt_depth_map.golden.sgbm import golden_stereo_sgbm
 
 INVALID = -16
 

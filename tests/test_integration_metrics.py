@@ -9,10 +9,10 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from rt_depth_map_tpu.config import EngineConfig, MatcherConfig
-from rt_depth_map_tpu.metrics import disparity_report
-from rt_depth_map_tpu.pipeline import Engine
-from rt_depth_map_tpu.sources import SyntheticStereoSource
+from rt_depth_map.config import EngineConfig, MatcherConfig
+from rt_depth_map.metrics import disparity_report
+from rt_depth_map.pipeline import Engine
+from rt_depth_map.sources import SyntheticStereoSource
 
 
 def run_engine(kind, src, W, H, D):

@@ -5,8 +5,8 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from rt_depth_map_tpu.decode import native
-from rt_depth_map_tpu.decode.mjpeg import MJPEGDecoder
+from rt_depth_map.decode import native
+from rt_depth_map.decode.mjpeg import MJPEGDecoder
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason=f"native build failed: {native.build_error()}"

@@ -6,7 +6,7 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 import jax.numpy as jnp
 
-from rt_depth_map_tpu.ops import (
+from rt_depth_map.ops import (
     dilate,
     ellipse_kernel,
     erode,

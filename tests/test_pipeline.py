@@ -9,14 +9,14 @@ tolerance (SURVEY.md section 4 item 5).
 import numpy as np
 import pytest
 
-from rt_depth_map_tpu.config import EngineConfig, MatcherConfig
-from rt_depth_map_tpu.decode import (
+from rt_depth_map.config import EngineConfig, MatcherConfig
+from rt_depth_map.decode import (
     MJPEGDecoder,
     has_huffman_tables,
     inject_default_huffman_tables,
 )
-from rt_depth_map_tpu.pipeline import Engine
-from rt_depth_map_tpu.sources import SyntheticStereoSource
+from rt_depth_map.pipeline import Engine
+from rt_depth_map.sources import SyntheticStereoSource
 
 
 def small_cfg(**kw):
@@ -29,7 +29,7 @@ def small_cfg(**kw):
 
 @pytest.fixture(scope="module")
 def engine():
-    from rt_depth_map_tpu.sources.synthetic import SyntheticObject
+    from rt_depth_map.sources.synthetic import SyntheticObject
 
     cfg = small_cfg()
     # explicit non-overlapping static objects so each maps to one component
@@ -115,7 +115,7 @@ def test_engine_stale_frame_on_corrupt_mjpeg():
         width, height, rectified = src.width, src.height, True
 
         def grab(self):
-            from rt_depth_map_tpu.sources.base import StereoFrame
+            from rt_depth_map.sources.base import StereoFrame
 
             bad = StereoFrame(encoding="mjpeg", data=b"\xff\xd8\x00garbage")
             return bad, bad

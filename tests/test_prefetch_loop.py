@@ -12,9 +12,9 @@ import threading
 import numpy as np
 import pytest
 
-from rt_depth_map_tpu.config import EngineConfig, MatcherConfig
-from rt_depth_map_tpu.pipeline import Engine
-from rt_depth_map_tpu.sources import SyntheticStereoSource
+from rt_depth_map.config import EngineConfig, MatcherConfig
+from rt_depth_map.pipeline import Engine
+from rt_depth_map.sources import SyntheticStereoSource
 
 
 def _engine(W=160, H=64, **src_kw):

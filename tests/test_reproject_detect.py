@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from rt_depth_map_tpu.ops.detect import detect_objects, matching_region
-from rt_depth_map_tpu.ops.reproject import (
+from rt_depth_map.ops.detect import detect_objects, matching_region
+from rt_depth_map.ops.reproject import (
     calc_depth,
     disparity_fixed_to_float,
     reproject_to_3d,
@@ -133,7 +133,7 @@ def test_detect_two_stage_topk_matches_global():
     import jax
     import jax.numpy as jnp
 
-    from rt_depth_map_tpu.ops.detect import detect_objects
+    from rt_depth_map.ops.detect import detect_objects
 
     H, W = 64, 128  # 8192 = 4 chunks of 2048
     rng = np.random.default_rng(11)

@@ -10,7 +10,7 @@ of earlier rounds must remain reproducible).
 import numpy as np
 import pytest
 
-from rt_depth_map_tpu.sources import SyntheticStereoSource
+from rt_depth_map.sources import SyntheticStereoSource
 
 
 def test_default_family_unchanged_fingerprint():

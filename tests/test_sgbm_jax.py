@@ -10,13 +10,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from rt_depth_map_tpu.config import MatcherConfig
-from rt_depth_map_tpu.golden.sgbm import (
+from rt_depth_map.config import MatcherConfig
+from rt_depth_map.golden.sgbm import (
     golden_stereo_sgbm,
     sgbm_cost_volume as golden_cost_volume,
 )
-from rt_depth_map_tpu.ops.sgbm import aggregate_cost, sgbm_cost_volume, stereo_sgbm
-from rt_depth_map_tpu.golden.sgbm import _aggregate_dir as golden_aggregate_dir
+from rt_depth_map.ops.sgbm import aggregate_cost, sgbm_cost_volume, stereo_sgbm
+from rt_depth_map.golden.sgbm import _aggregate_dir as golden_aggregate_dir
 
 
 def stereo_pair(seed, H, W, shift):
@@ -44,7 +44,7 @@ def test_aggregate_one_direction_bit_exact(dy, dx):
     left, right = stereo_pair(1, 24, 80, 5)
     Cg, _, _ = golden_cost_volume(left, right, 16, 3, 0, 0)
     Lg = golden_aggregate_dir(Cg, 100, 400, dy, dx)
-    from rt_depth_map_tpu.ops.sgbm import _aggregate_dir as jax_aggregate_dir
+    from rt_depth_map.ops.sgbm import _aggregate_dir as jax_aggregate_dir
 
     Lj = jax_aggregate_dir(jnp.asarray(Cg), 100, 400, dy, dx)
     np.testing.assert_array_equal(np.asarray(Lj), Lg)

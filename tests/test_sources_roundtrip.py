@@ -10,9 +10,9 @@ import os
 import numpy as np
 import pytest
 
-from rt_depth_map_tpu.config import EngineConfig, MatcherConfig
-from rt_depth_map_tpu.pipeline import Engine
-from rt_depth_map_tpu.sources import FileSequenceSource, SyntheticStereoSource
+from rt_depth_map.config import EngineConfig, MatcherConfig
+from rt_depth_map.pipeline import Engine
+from rt_depth_map.sources import FileSequenceSource, SyntheticStereoSource
 
 
 def test_file_sequence_roundtrip(tmp_path):
@@ -63,7 +63,7 @@ def test_matcher_regression_golden():
     python tests/test_sources_roundtrip.py --regen"""
     import jax.numpy as jnp
 
-    from rt_depth_map_tpu.ops.bm import stereo_bm
+    from rt_depth_map.ops.bm import stereo_bm
 
     src = SyntheticStereoSource(320, 240, seed=7)
     left, right, _, _ = src.render(0)
@@ -89,7 +89,7 @@ if __name__ == "__main__":
         import cv2
         import jax.numpy as jnp
 
-        from rt_depth_map_tpu.ops.bm import stereo_bm
+        from rt_depth_map.ops.bm import stereo_bm
 
         src = SyntheticStereoSource(320, 240, seed=7)
         left, right, _, _ = src.render(0)

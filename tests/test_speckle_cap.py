@@ -1,8 +1,8 @@
 """Worst-case bound for the CC propagation (RTDM_CC_MAX_ROUNDS).
 
 The speckle filter's label propagation converges in O(direction turns)
-sweeps -- unbounded on adversarial input (round-4's 819ms random-noise
-artifact). Production caps the sweeps; these tests pin the DECISION
+sweeps -- unbounded on adversarial input (dense random noise).
+Production caps the sweeps; these tests pin the DECISION
 semantics under the cap:
 
   1. a capped label field sub-partitions the true components (no label
@@ -17,8 +17,8 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from rt_depth_map_tpu.ops.cc import connected_components_scan  # noqa: E402
-from rt_depth_map_tpu.ops.speckle import filter_speckles  # noqa: E402
+from rt_depth_map.ops.cc import connected_components_scan  # noqa: E402
+from rt_depth_map.ops.speckle import filter_speckles  # noqa: E402
 
 
 def _snake(H=64, W=96, arms=8):

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rt_depth_map_tpu.config import MatcherConfig
-from rt_depth_map_tpu.ops.sgbm import stereo_sgbm
-from rt_depth_map_tpu.parallel import make_mesh
-from rt_depth_map_tpu.parallel.tiled_sgbm import tiled_stereo_sgbm
+from rt_depth_map.config import MatcherConfig
+from rt_depth_map.ops.sgbm import stereo_sgbm
+from rt_depth_map.parallel import make_mesh
+from rt_depth_map.parallel.tiled_sgbm import tiled_stereo_sgbm
 
 INVALID = -16
 

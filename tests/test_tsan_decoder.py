@@ -68,7 +68,7 @@ def _find_libtsan():
 
 @pytest.mark.skipif(_find_libtsan() is None, reason="libtsan not installed")
 def test_decode_pool_race_free_under_tsan():
-    from rt_depth_map_tpu.decode.native import build_locked
+    from rt_depth_map.decode.native import build_locked
 
     try:
         build_locked("tsan")  # file-locked: xdist workers may build too

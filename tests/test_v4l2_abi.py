@@ -11,8 +11,8 @@ import ctypes
 
 import pytest
 
-from rt_depth_map_tpu.sources import v4l2 as v4l2mod
-from rt_depth_map_tpu.sources.v4l2 import (
+from rt_depth_map.sources import v4l2 as v4l2mod
+from rt_depth_map.sources.v4l2 import (
     _v4l2_buffer,
     _v4l2_format,
     _v4l2_pix_format,

@@ -21,8 +21,8 @@ import types
 import numpy as np
 import pytest
 
-import rt_depth_map_tpu.sources.v4l2 as v4l2
-from rt_depth_map_tpu.decode import MJPEGDecoder
+import rt_depth_map.sources.v4l2 as v4l2
+from rt_depth_map.decode import MJPEGDecoder
 
 
 def _mjpeg_frames(w, h, n, strip_huffman=False, seed=0):

@@ -11,10 +11,10 @@ scalars).
 import numpy as np
 import pytest
 
-from rt_depth_map_tpu.config import EngineConfig, MatcherConfig
-from rt_depth_map_tpu.pipeline import Engine
-from rt_depth_map_tpu.sources import SyntheticStereoSource
-from rt_depth_map_tpu.utils.viewer import TRACKBARS, AdjustState
+from rt_depth_map.config import EngineConfig, MatcherConfig
+from rt_depth_map.pipeline import Engine
+from rt_depth_map.sources import SyntheticStereoSource
+from rt_depth_map.utils.viewer import TRACKBARS, AdjustState
 
 
 @pytest.fixture(scope="module")

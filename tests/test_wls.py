@@ -9,9 +9,9 @@ region fill from confident neighbors.
 import numpy as np
 import jax.numpy as jnp
 
-from rt_depth_map_tpu.config import MatcherConfig
-from rt_depth_map_tpu.ops.bm import stereo_bm
-from rt_depth_map_tpu.ops.wls import (
+from rt_depth_map.config import MatcherConfig
+from rt_depth_map.ops.bm import stereo_bm
+from rt_depth_map.ops.wls import (
     fast_global_smoother,
     lr_confidence,
     right_matcher_config,
@@ -92,7 +92,7 @@ def test_tridiag_sweep_matches_dense_solve(rng):
     """Numeric oracle for the Thomas-algorithm sweep: solve the same
     (W_conf + lam*L) u = W_conf x system densely with numpy per row
     (independent construction of the weighted 1-D Laplacian)."""
-    from rt_depth_map_tpu.ops.wls import _tridiag_smooth_rows
+    from rt_depth_map.ops.wls import _tridiag_smooth_rows
 
     H, W = 6, 40
     lam, sigma = 37.5, 1.5

@@ -1,141 +1,100 @@
-"""Analytical speed-of-light model for the flagship pipeline on TPU v5e.
+"""Analytical speed-of-light model for the flagship frame program.
 
-Computes, per pipeline stage, the HBM-traffic floor and the VPU/MXU
-compute floor at the flagship operating point (1280x720, D=128, SGM 8-path,
-block_size=5), and prints the larger of the two as that stage's
-speed-of-light. This is the "prove the ceiling" analysis: it bounds what
-any implementation of the cv2-parity algorithm can reach on one chip, and
-attributes the remaining gap of the measured build (HARVEST numbers) to
-per-launch/per-step overheads that batching (BENCH_BATCH=4) amortizes.
+Counts, per pipeline stage, the device-memory bytes and the elementwise
+integer operations the algorithm needs at an operating point (default
+1280x720, D=128, SGM 8-path, block_size=5), and divides them by the peaks
+of the named device. The larger of the two quotients is that stage's
+floor. Counts assume perfect fusion and overlap, so the model is a ceiling
+no implementation can beat; it is not a measurement.
 
-Hardware model (TPU v5e, public numbers):
-  HBM bandwidth      819 GB/s
-  VPU                (8, 128) lanes x 4 ALUs @ ~1.5 GHz  ~= 6.1e12 int-op/s
-  MXU (int8)         394 TOPS (197 T MAC/s)
-Assumptions are deliberately optimistic (perfect overlap, no launch or
-pipeline-fill overhead, all elementwise XLA fused) -- real kernels can only
-be slower, so the model is a valid ceiling.
+Peaks are keyed by `jax.devices()[0].device_kind`; a kind missing from
+PEAKS is an error, never a default.
 
-Usage: python tools/perf_model.py [WxH] [D] [paths]
+Usage: python tools/perf_model.py [WxH] [D] [paths] [--device-kind KIND]
 """
 
+import math
 import sys
 
-HBM = 819e9          # bytes/s
-VPU = 8 * 128 * 4 * 1.5e9   # int ops/s
-MXU_I8 = 197e12      # MAC/s
+# NVIDIA H100 SXM5 data sheet: 3.35 TB/s HBM3, 67 TFLOP/s FP32 outside
+# the tensor cores. An SM issues INT32 at half its FP32 rate (64 vs 128
+# lanes per clock), hence 33.5e12 integer ops/s.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"bytes_per_s": 3.35e12, "int_ops_per_s": 33.5e12},
+}
 
 
-def stage(name, hbm_bytes, vpu_ops=0, mxu_macs=0, verbose=True):
-    t_hbm = hbm_bytes / HBM * 1e3
-    t_vpu = vpu_ops / VPU * 1e3
-    t_mxu = mxu_macs / MXU_I8 * 1e3
-    t = max(t_hbm, t_vpu, t_mxu)
+def peaks_for(device_kind: str) -> dict:
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no peaks recorded for device kind {device_kind!r}; add its "
+            f"data-sheet values to PEAKS") from None
+
+
+def stage(name, peaks, nbytes, int_ops=0, verbose=True):
+    t_mem = nbytes / peaks["bytes_per_s"] * 1e3
+    t_ops = int_ops / peaks["int_ops_per_s"] * 1e3
+    t = max(t_mem, t_ops)
     if verbose:
-        bound = ("HBM", "VPU", "MXU")[[t_hbm, t_vpu, t_mxu].index(t)]
-        print(f"  {name:<34} {t_hbm:7.3f} {t_vpu:7.3f} {t_mxu:7.3f} "
-              f"-> {t:7.3f} ms ({bound}-bound)")
+        bound = "memory" if t_mem >= t_ops else "int-ops"
+        print(f"  {name:<34} {t_mem:7.3f} {t_ops:7.3f} -> {t:7.3f} ms "
+              f"({bound}-bound)")
     return t
 
 
-def floor_ms(W, H, D, paths=8, verbose=False):
-    """Analytic speed-of-light frame time (ms) for the full pipeline at
-    (W, H, D, paths) -- importable so bench.py can report an MFU-style
-    `util_frac = floor_ms / achieved_ms` per cell (VERDICT round-4
-    item 9). Same model as the CLI table below."""
-    return _model(W, H, D, paths, verbose=verbose)
-
-
-def main():
-    size = sys.argv[1] if len(sys.argv) > 1 else "1280x720"
-    W, H = (int(v) for v in size.split("x"))
-    D = int(sys.argv[2]) if len(sys.argv) > 2 else 128
-    paths = int(sys.argv[3]) if len(sys.argv) > 3 else 8
-    total = _model(W, H, D, paths, verbose=True)
-    print(f"  {'TOTAL (perfect overlap of none)':<34} "
-          f"{'':7} {'':7} {'':7} -> {total:7.3f} ms "
-          f"= {1e3 / total:6.1f} fps ceiling/chip")
-    print()
-    print("Interpretation: the ceiling above assumes zero launch overhead,")
-    print("zero pipeline-fill idle, and perfect VPU utilization. The")
-    print("measured gap above it is NOT recurrence math or carry latency:")
-    print("tools/scratch_pass_floor.py shows the full SGM step costs the")
-    print("same as a pure DMA copy (~2.2us/step). The dominant overhead is")
-    print("a fixed ~20us per Mosaic fori_loop trip (DMA semaphore +")
-    print("bookkeeping), so wall time ~= trips x 20us -- which is why the")
-    print("streaming kernels take the largest KB block VMEM allows, and")
-    print("why further gains need fewer trips, not leaner step math.")
+def floor_ms(W, H, D, paths=8, device_kind="NVIDIA H100 80GB HBM3",
+             verbose=False):
+    """Speed-of-light frame time (ms) at (W, H, D, paths) on device_kind."""
+    peaks = peaks_for(device_kind)
+    W1 = W - D
+    vol = H * W1 * D            # cost-volume elements
+    px = H * W
+    if verbose:
+        print(f"{W}x{H} D={D} W1={W1} paths={paths} on {device_kind} "
+              f"(columns: memory / int-op floor, ms)")
+    total = 0.0
+    # rectify: 2 gathers (packed gray+RGB left, gray right) of uint8 planes
+    total += stage("rectify remap", peaks, 5 * px * 2, px * 40, verbose)
+    # BT cost volume: int16 out once; BT ~14 ops + 2 * bs window adds
+    total += stage("BT cost volume (int16 out)", peaks,
+                   12 * px * 4 + vol * 2, vol * (14 + 10), verbose)
+    # aggregation: per direction read C (int16) + read/write S (int32);
+    # the first direction writes S only. ~8 ops per element per direction.
+    agg_bytes = paths * vol * 2 + (2 * paths - 1) * vol * 4
+    total += stage(f"SGM aggregation ({paths} directions)", peaks,
+                   agg_bytes, paths * vol * 8, verbose)
+    # WTA + uniqueness + subpixel: one read of S, ~6 ops per element
+    total += stage("WTA + uniqueness + subpixel", peaks,
+                   vol * 4 + 4 * H * W1 * 4, vol * 6, verbose)
+    # LR check: 2 shift-reduces over D+2 candidates of (H, W) planes
+    total += stage("LR consistency", peaks, 6 * px * 4,
+                   2 * px * 3 * (D + 2), verbose)
+    # speckle: CC propagation ~3 sweeps of segmented scans + sizes
+    cc_ops = 3 * px * (math.ceil(math.log2(W)) * 4 + 16)
+    total += stage("speckle (CC + sizes)", peaks, 6 * px * 4, 2 * cc_ops,
+                   verbose)
+    total += stage("hsv+inrange+morph open/close", peaks, 4 * px * 2,
+                   px * (20 + 4 * 12), verbose)
+    total += stage("detect + reproject + depth", peaks, 6 * px * 4,
+                   2 * cc_ops + px * 20, verbose)
     return total
 
 
-def _model(W, H, D, paths, verbose):
-    W1 = W - D
-    Hp = -(-H // 128) * 128
-    bs = 5
-    vol = H * W1 * D            # cost-volume elements
-    volp = Hp * W1 * D          # padded-H volume (horizontal stage space)
-    px = H * W
-
-    if verbose:
-        print(f"flagship {W}x{H} D={D} W1={W1} paths={paths} "
-              f"(columns: HBM / VPU / MXU floor, ms)")
-    total = 0.0
-
-    # rectify: 3 remaps (2 gray + 1 packed RGBA) reading uint8 planes +
-    # writing outputs; planned-remap select network ~ 40 select ops/px
-    total += stage("rectify remap x3 (planned)",
-                   hbm_bytes=5 * px * 2, vpu_ops=5 * px * 40,
-                   verbose=verbose)
-
-    # cost volume: reads 12 int32 pre-processed planes once per stripe
-    # (overlap ~1.25x), writes the int16 volume once; BT compute ~14 ops +
-    # window ~ (bs-1 vertical adds + 2*(bs//2) horizontal roll-adds) per
-    # element
-    total += stage("BT cost volume (int16 out)",
-                   hbm_bytes=int(12 * px * 4 * 1.25) + vol * 2,
-                   vpu_ops=vol * (14 + (bs - 1) + 2 * (bs // 2)), verbose=verbose)
-
-    # layout transposes: volume read+write each way (padded-H space)
-    total += stage("volume transpose x2",
-                   hbm_bytes=2 * (volp * 2 * 2), verbose=verbose)
-
-    # horizontal bidir: read volume + write S (int16); recurrence ~6 ops
-    # per element per direction family x2 sweeps (fused: one read)
-    total += stage("horizontal SGM (2 sweeps fused)",
-                   hbm_bytes=volp * 2 * 2, vpu_ops=2 * volp * 6, verbose=verbose)
-
-    # vertical bidir + WTA: read C + Sh, write 4 (H, W1) int32 outputs;
-    # 2 sweeps x 3 directions x ~8 ops (dy, dy+-1 with lane rolls) + WTA
-    # ~6 ops/elem
-    nvert = 6 if paths >= 8 else 3
-    total += stage("vertical SGM + WTA (fused)",
-                   hbm_bytes=2 * vol * 2 + 4 * H * W1 * 4,
-                   vpu_ops=vol * (nvert * 8 + 6), verbose=verbose)
-
-    # LR check: in-VMEM kernel: read 4 int32 planes, write 2; ~(D/8) rolls
-    # x 8 x 3 ops twice
-    total += stage("LR consistency (in-VMEM)",
-                   hbm_bytes=6 * px * 4, vpu_ops=2 * px * 3 * (D + 2), verbose=verbose)
-
-    # speckle: CC propagation ~3 sweeps x segmented-scan log2(W)x4 ops +
-    # histogram MXU dot (8 x HW/128 x 65536-ish one-hot -- modeled as
-    # labels-read + sizes-write) + size propagation (same as CC)
-    import math
-    cc_ops = 3 * px * (math.ceil(math.log2(W)) * 4 + 16)
-    total += stage("speckle (CC + MXU hist + sizes)",
-                   hbm_bytes=6 * px * 4,
-                   vpu_ops=2 * cc_ops,
-                   mxu_macs=px * 512,  # one-hot dot, 512-wide bins/tile
-                   verbose=verbose)
-
-    # HSV threshold + morphology (10x10 doubling tree ~ 12 min/max stages)
-    total += stage("hsv+inrange+morph open/close",
-                   hbm_bytes=4 * px * 2, vpu_ops=px * (20 + 4 * 12), verbose=verbose)
-
-    # detect (CC bbox over mask) + reproject + depth stats
-    total += stage("detect + reproject + depth",
-                   hbm_bytes=6 * px * 4, vpu_ops=2 * cc_ops + px * 20, verbose=verbose)
-
+def main():
+    argv = list(sys.argv[1:])
+    kind = "NVIDIA H100 80GB HBM3"
+    if "--device-kind" in argv:
+        i = argv.index("--device-kind")
+        kind = argv[i + 1]
+        del argv[i : i + 2]
+    W, H = (int(v) for v in (argv[0] if argv else "1280x720").split("x"))
+    D = int(argv[1]) if len(argv) > 1 else 128
+    paths = int(argv[2]) if len(argv) > 2 else 8
+    total = floor_ms(W, H, D, paths, kind, verbose=True)
+    print(f"  {'TOTAL (no overlap between stages)':<34} {'':7} {'':7} -> "
+          f"{total:7.3f} ms = {1e3 / total:6.1f} fps ceiling")
     return total
 
 

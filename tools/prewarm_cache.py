@@ -1,18 +1,15 @@
 """Pre-warm the persistent compilation cache for the standard operating
 points (deployment cold-start recipe).
 
-A cache-cold machine pays ~90-100 s of XLA+Mosaic compile for a 720p
-cell, dominated by the CC seg-min propagation kernel (~85 s; see
-HARVEST_R5 section 7 for the dissection and the rejected diets). This
-tool compiles every kernel of the requested cells ONCE into the
-persistent cache (RTDM_COMPILE_CACHE, default ~/.cache/rt_depth_map_tpu/
-jax), after which engine/CLI/bench starts are < 10 s.
+Compiles the engine's frame program for each requested cell ONCE into the
+persistent cache (JAX_COMPILATION_CACHE_DIR where set, else
+<checkout>/.jax_cache -- rt_depth_map/utils/compile_cache.py), so later
+engine/CLI/bench starts load it instead of compiling.
 
 Usage: python tools/prewarm_cache.py [cells...]
-  cells: WxHxD[:bm|:sgm][,batch] (default: the BENCH_MATRIX set)
+  cells: WxHxD[:bm|:sgm] (default: the BENCH_MATRIX set)
 """
 
-import os
 import sys
 import time
 
@@ -22,23 +19,12 @@ import numpy as np
 def main():
     import jax
 
-    _plat = os.environ.get("JAX_PLATFORMS", "").strip().lower()
-    if _plat:
-        jax.config.update("jax_platforms", _plat)
-    cache = os.environ.get(
-        "RTDM_COMPILE_CACHE",
-        os.path.expanduser("~/.cache/rt_depth_map_tpu/jax"))
-    if cache and cache != "0":
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from rt_depth_map.config import EngineConfig, MatcherConfig
+    from rt_depth_map.pipeline import Engine
+    from rt_depth_map.sources import SyntheticStereoSource
+    from rt_depth_map.utils.compile_cache import enable_compile_cache
 
-    from rt_depth_map_tpu.config import EngineConfig, MatcherConfig
-    from rt_depth_map_tpu.pipeline import Engine
-    from rt_depth_map_tpu.sources import SyntheticStereoSource
-    from rt_depth_map_tpu.tuned import apply_tuned_env
-
-    apply_tuned_env()
+    print(f"compile cache: {enable_compile_cache()}", flush=True)
 
     cells = sys.argv[1:] or [
         "320x240x64:bm", "320x240x64:sgm",
